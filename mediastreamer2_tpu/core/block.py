@@ -2,7 +2,7 @@
 
 The reference moves variable-size refcounted ``mblk_t`` buffers through
 per-edge FIFO queues (reference: include/mediastreamer2/msqueue.h:32-36,
-oRTP str_utils).  On TPU, dynamic shapes kill compilation, so the unit of
+oRTP str_utils).  Under XLA, dynamic shapes force recompilation, so the unit of
 data is a **fixed-size tick block**: every graph edge carries exactly one
 tick (10 ms) worth of samples for *all* legs at once, shaped
 ``[legs, samples_per_tick * channels]`` (interleaved, like the reference's
@@ -35,7 +35,7 @@ class Format:
     The reference negotiates rate/channels dynamically through
     ``ms_filter_call_method`` (MS_FILTER_SET_SAMPLE_RATE etc.); here formats
     are part of the graph's static shape class — changing them means
-    compiling a different graph, which is the TPU-native equivalent of the
+    compiling a different graph, which is the batched equivalent of the
     reference's "graphs are only mutated while detached" invariant
     (reference: src/base/msfilter.c:126-133).
 

@@ -5,7 +5,7 @@ capability flags, reader/writer filter creation, per-platform detection
 descriptors) and MSWebCam/MSWebCamManager (mswebcam.c: per-platform
 MSWebCamDesc with detect + create-reader).
 
-TPU-native: a "card" is a host I/O adapter that fills/drains tick tensors
+Batched: a "card" is a host I/O adapter that fills/drains tick tensors
 for its legs (the ext_source/ext_sink boundary).  Detection descriptors
 register per-platform backends; this round ships the backends that make
 sense in a server/headless deployment: null (silence), file-backed, and
@@ -52,7 +52,7 @@ class SndCard:
     def set_output_gain(self, gain: float):
         self.output_gain = float(gain)
 
-    # tick adapters — the TPU replacement for create_reader/create_writer:
+    # tick adapters — the batched replacement for create_reader/create_writer:
     # pull(tick, batch) -> [batch, S] capture block;
     # push(tick, block) consumes playback. Subclasses implement _pull_raw/
     # _push_raw; gains are applied here, uniformly.

@@ -1,7 +1,7 @@
 """MSFactory equivalent: filter registry + plugin loading + codec lookup.
 
 Reference: src/base/msfactory.c (registry at :193-194, plugin dlopen at
-:531-586, create_encoder/decoder by mime).  TPU-native differences:
+:531-586, create_encoder/decoder by mime).  Batched-design differences:
 
 * filters are pure descriptors, so a factory is just a name->FilterDef map
   snapshotting the module-level registry plus any plugins;

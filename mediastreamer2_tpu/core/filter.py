@@ -1,4 +1,4 @@
-"""Filter descriptors — the TPU-native MSFilterDesc.
+"""Filter descriptors — the batched MSFilterDesc.
 
 The reference models every processing element as an ``MSFilterDesc`` with
 ``init/preprocess/process/postprocess/uninit`` callbacks and a method table

@@ -1,13 +1,13 @@
 """Realtime GC discipline for paced runs.
 
 A gen-2 CPython garbage collection in this process (hundreds of MB of
-numpy buffers, futures churn, jax tracing caches) measures ~100 ms on the
-1-core bench host — instrumented as a 110.8 ms io_pull spike in the mixed
-fleet (ROUND5_NOTES): ONE pause starves every co-resident member's 10 ms
+numpy buffers, futures churn, jax tracing caches) can take ~100 ms on a
+one-core host (seen as a ~110 ms io_pull spike in the mixed fleet): ONE
+pause starves every co-resident member's 10 ms
 edge and shows up as a late-tick cluster on all of them.
 
 The reference runtime is C with no collector to pause (its ticker loop
-never allocates cyclically; src/base/msticker.c:448).  The TPU-native
+never allocates cyclically; src/base/msticker.c:448).  The batched
 analogue: paced sections run with the collector OFF and the startup heap
 frozen out of scan reach, with one explicit collect at section exit.
 Reference-counting still frees the per-tick numpy buffers immediately —

@@ -158,8 +158,8 @@ def reset_thread_priority() -> None:
     Linux threads inherit the creator's nice value, so worker pools
     created lazily from an elevated (nice -10) paced thread would run
     elevated too — defeating the documented differential where the paced
-    loop wins the wakeup race over publish/codec workers (ADVICE r4:
-    models/mixed_fleet.py).  Use as a ThreadPoolExecutor initializer."""
+    loop wins the wakeup race over publish/codec workers
+    (models/mixed_fleet.py).  Use as a ThreadPoolExecutor initializer."""
     import os
     try:
         os.setpriority(os.PRIO_PROCESS, threading.get_native_id(), 0)
@@ -184,9 +184,8 @@ def priority_pool(max_workers: int = 1, name: str = "ms2tpu-worker",
     paced-deadline work (do_ticks, block uploads) while publish/codec
     pools do latency-tolerant work behind a pipeline — on a saturated
     1-core host the dispatch worker must win the CPU race or worker-side
-    tick durations blow the 10 ms accounting (measured: opus duration-late
-    spikes to 33 ms at ~90% load with NO GIL/tunnel contention —
-    tools/gil_probe.py, tools/hol_probe.py)."""
+    tick durations blow the 10 ms accounting (opus duration-late spikes to
+    33 ms were seen at ~90% load with no GIL contention)."""
     import os as _os
     from concurrent.futures import ThreadPoolExecutor
 

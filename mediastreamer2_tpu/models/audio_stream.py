@@ -5,7 +5,7 @@ Reference: ``audio_stream_start_full`` (src/voip/audiostream.c:1884 →
 rtprecv→decoder→…→soundwrite per call (graph shapes at :1796-1832), spawns
 a ticker thread per stream, and the app pumps ``media_stream_iterate``.
 
-TPU-native re-design: **one AudioStreamBatch hosts N call legs** sharing a
+Batched re-design: **one AudioStreamBatch hosts N call legs** sharing a
 single compiled graph — the batch dimension replaces per-stream tickers.
 Feature flags (echo cancellation, AGC, noise gate, PLC, VAD/DTX, DTMF —
 cf. AUDIO_STREAM_FEATURE_* bits) select which nodes are built; per-leg

@@ -5,7 +5,7 @@ member AudioStreams' graphs are surgically cut and spliced into mixer pins
 (:119-178 cut_audio_stream_graph), per-endpoint resamplers, active-talker
 detection at -30 dB (:31), 50-member mixer cap (audiomixer.c:29).
 
-TPU-native: the deployment-wide `conf_mixer` already mixes every conference
+Batched: the deployment-wide `conf_mixer` already mixes every conference
 in the batch at once (ops/mixer.py); this class is the *control plane*:
 allocate legs to conferences, keep group/active params in sync, surface
 active-talker events (RMS over the device-computed levels), and expose the

@@ -1,6 +1,6 @@
 """Flagship pipeline: the 48 kHz AEC+resample+mix conference leg.
 
-This is BASELINE.md's north-star configuration (config 4): every leg runs
+The north-star configuration: every leg runs
 mic -> echo cancellation (48 kHz, 80 ms tail) -> AGC volume -> polyphase
 resample 48k->16k -> N-way conference mix-minus.  The graph mirrors the
 reference's conference endpoint chain (audioconference.c splice of
@@ -17,8 +17,10 @@ from mediastreamer2_tpu.core.graph import GraphBuilder
 
 def build_flagship(factory, batch: int, rate: int = 48000,
                    mix_rate: int = 16000, conf_size: int = 4,
-                   tail_ms: int = 80):
-    """Returns (CompiledGraph, params) with conference groups of conf_size."""
+                   tail_ms: int = 80, uniform_groups: bool = True):
+    """Returns (CompiledGraph, params) with conference groups of conf_size.
+    uniform_groups=False mixes with the general segment-sum (any sorted
+    group_id layout, e.g. groups straddling shard boundaries)."""
     g = GraphBuilder(factory, batch=batch)
     mic = g.add("ext_source", "mic", fmt=Format(rate=rate))
     spk = g.add("ext_source", "spk_ref", fmt=Format(rate=rate))
@@ -26,7 +28,8 @@ def build_flagship(factory, batch: int, rate: int = 48000,
     agc = g.add("volume", "agc")
     rs = g.add("resample", "rs", out_rate=mix_rate)
     mix = g.add("conf_mixer", "conf", sorted_groups=True,
-                uniform_group_size=conf_size)
+                **({"uniform_group_size": conf_size} if uniform_groups
+                   else {}))
     out = g.add("ext_sink", "out")
     g.link(mic, 0, ec, 0)
     g.link(spk, 0, ec, 1)

@@ -1,8 +1,8 @@
 """Native runtime components (C++), loaded via ctypes.
 
-Built on first import with g++ (cached as _ms2io.so next to the source).
-Everything degrades gracefully to pure-Python paths when the toolchain is
-unavailable.
+Built on first use with g++ from the committed sources (cached as
+_ms2io.so / _ms2rtp.so next to them).  Everything degrades to pure-Python
+paths when g++ is absent; a compiler error is raised with its message.
 """
 from __future__ import annotations
 
@@ -22,30 +22,47 @@ _lib = None
 _build_lock = threading.Lock()
 
 
+class NativeBuildError(RuntimeError):
+    """g++ rejected a native source; carries the compiler's message."""
+
+
 def _build_so(src: str, so: str) -> Optional[ctypes.CDLL]:
-    """Compile src -> so if stale, then load (None on any failure).
+    """Compile src -> so if stale, then load (None when g++ is absent).
 
     Built on (and for) the machine it runs on, so -march=native is safe
     and lets the packet loops vectorize + the SRTP intrinsics path
-    (aesni_crypto.h: AES-NI/SHA-NI/PCLMUL) compile; if the local g++
-    rejects it (exotic arch), retry portable."""
+    (aesni_crypto.h: AES-NI/SHA-NI/PCLMUL) compile.  A compiler error is
+    raised with its message, never retried with other flags (a portable
+    retry silently dropped the intrinsics path).  Builds are serialized
+    across processes by a lock file and written under a per-process
+    temporary name, so parallel test workers never install each other's
+    half-written output."""
+    import fcntl
     src_dir = os.path.dirname(src)
-    newest = max([os.path.getmtime(src)]
-                 + [os.path.getmtime(os.path.join(src_dir, f))
-                    for f in os.listdir(src_dir) if f.endswith(".h")])
-    if not os.path.exists(so) or newest > os.path.getmtime(so):
-        for extra in (["-O3", "-march=native"], ["-O2"]):
-            try:
-                subprocess.run(
-                    ["g++", *extra, "-shared", "-fPIC", "-pthread", src,
-                     "-o", so + ".tmp", "-ldl"],
-                    check=True, capture_output=True, timeout=120)
-                os.replace(so + ".tmp", so)
-                break
-            except (subprocess.SubprocessError, OSError):
-                continue
-        else:
-            return None
+
+    def stale() -> bool:
+        newest = max([os.path.getmtime(src)]
+                     + [os.path.getmtime(os.path.join(src_dir, f))
+                        for f in os.listdir(src_dir) if f.endswith(".h")])
+        return not os.path.exists(so) or newest > os.path.getmtime(so)
+
+    if stale():
+        with open(so + ".lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            if stale():                  # another process may have built it
+                tmp = f"{so}.{os.getpid()}.tmp"
+                try:
+                    r = subprocess.run(
+                        ["g++", "-O3", "-march=native", "-shared", "-fPIC",
+                         "-pthread", src, "-o", tmp, "-ldl"],
+                        capture_output=True, text=True, timeout=600)
+                except FileNotFoundError:
+                    return None          # no toolchain: pure-Python paths
+                if r.returncode != 0:
+                    raise NativeBuildError(
+                        f"g++ failed building {os.path.basename(src)}:\n"
+                        f"{r.stderr[-4000:]}")
+                os.replace(tmp, so)
     try:
         return ctypes.CDLL(so)
     except OSError:
@@ -213,6 +230,35 @@ def rtp_edge_hw_crypto() -> bool:
     return bool(lib is not None and lib.ms2_rtp_hw_crypto())
 
 
+_UDP_SEGMENT = 103                       # linux/udp.h
+_gso_ok: Optional[bool] = None
+
+
+def gso_supported() -> bool:
+    """Whether this kernel splits a UDP_SEGMENT send into datagrams: one
+    two-segment probe over loopback, cached.  Some kernels and user-space
+    network stacks refuse the control message, or ignore it and send one
+    merged datagram."""
+    global _gso_ok
+    if _gso_ok is None:
+        rx = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        tx = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        try:
+            rx.bind(("127.0.0.1", 0))
+            rx.settimeout(0.5)
+            tx.connect(rx.getsockname())
+            tx.sendmsg([b"a" * 8 + b"b" * 8],
+                       [(socket.IPPROTO_UDP, _UDP_SEGMENT,
+                         struct.pack("H", 8))])
+            _gso_ok = [rx.recv(64), rx.recv(64)] == [b"a" * 8, b"b" * 8]
+        except OSError:
+            _gso_ok = False
+        finally:
+            rx.close()
+            tx.close()
+    return _gso_ok
+
+
 class BatchRtpTx:
     """Batched RTP sender: one sendmmsg-backed socket carries N legs
     (per-message destination addresses). payloads is a [N, psz] uint8
@@ -254,12 +300,17 @@ class BatchRtpTx:
         here the batched call is sharded to reach the same scaling."""
         self._lib.ms2_rtptx_set_threads(self._h, t)
 
-    def enable_gso(self, remote):
+    def enable_gso(self, remote) -> bool:
         """Single-destination fast path: connect() the socket and let the
         kernel split one 64-segment send into datagrams (UDP_SEGMENT).
-        Only valid when every leg targets `remote`."""
+        Only valid when every leg targets `remote`.  Returns False, and
+        leaves the per-datagram path on, when this kernel does not split
+        a segmented send (gso_supported())."""
+        if not gso_supported():
+            return False
         self._sock.connect(remote)
         self._lib.ms2_rtptx_set_gso(self._h, 1)
+        return True
 
     def send(self, payloads, ts_inc: int, mask=None) -> int:
         import numpy as _np

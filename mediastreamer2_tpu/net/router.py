@@ -7,7 +7,7 @@ switching on key-frame boundaries with key-frame request/indication,
 seq-num/timestamp rewriting, full-packet vs payload routing, end-to-end
 encryption passthrough.  Older C variants: videorouter.c / videoswitcher.c.
 
-TPU-native split: routing is pure packet shuffling -> host; but the volume
+Device/host split: routing is pure packet shuffling -> host; but the volume
 ranking comes from the device (`audio_levels` filter energies), so the SFU
 decision input is computed in the batched graph — the same split §7 of
 SURVEY.md prescribes.

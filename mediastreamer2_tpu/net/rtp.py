@@ -3,7 +3,7 @@
 The reference delegates RTP to the external oRTP library (RtpSession held by
 every stream, reference include/mediastreamer2/mediastream.h:100; the graph
 edge filters are src/otherfilters/msrtp.c).  Sequential, byte-oriented and
-branchy, this layer is the wrong shape for a TPU — so, as in the reference,
+branchy, this layer is the wrong shape for an accelerator — so, as in the reference,
 it lives on the host CPU: sessions packetize device-produced payload blocks
 into RTP and feed received packets into the jitter buffer, which assembles
 the fixed-shape tick tensors the device graph consumes.

@@ -1,6 +1,6 @@
 """DVI4 (IMA ADPCM, RFC 3551) — a sequential codec expressed as lax.scan.
 
-This is the pattern for per-sample-adaptive codecs on TPU (the reference's
+This is the pattern for per-sample-adaptive codecs on the device (the reference's
 G.722/G.726 family, src/audiofilters/msg722.c / g726.c): the unavoidable
 per-sample recurrence becomes a ``lax.scan`` whose *body is fully
 vectorized across legs* — 80 sequential steps per tick, each advancing

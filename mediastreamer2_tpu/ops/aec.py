@@ -4,13 +4,11 @@ Reference: MSSpeexEC wraps speexdsp's MDF adaptive filter + preprocess
 denoiser (src/audiofilters/speexec.c:395-412; 64-sample frames, state blob
 serialization at :119-150).  The algorithm family is the same here —
 multi-delay-block frequency-domain adaptive filter (NLMS in the frequency
-domain, overlap-save) — but re-architected for TPU:
+domain, overlap-save) — but re-architected as one batched device step:
 
 * block size = one 10 ms tick (not 64 samples): fewer, bigger transforms;
 * all spectra are **real (re, im) float pairs** and every DFT is a constant
-  cos/sin **matmul on the MXU** (ops/rfft.py) — no complex dtype, no FFT
-  primitive (the deployment's TPU toolchain doesn't lower either, and at
-  tick sizes the matmul form fuses better anyway);
+  cos/sin **matmul** (ops/rfft.py) — no complex dtype, no FFT primitive;
 * every leg adapts in parallel as a batch dim — [B, P, F] tap tensors, so
   thousands of echo cancellers run as a handful of fused XLA ops per tick;
 * double-talk robustness via the classic **two-path** scheme: a *shadow*
@@ -58,12 +56,8 @@ def _partitions(ctx):
 
 
 def _padded_bins(S: int) -> int:
-    """Frequency-axis storage size. Measured on v5e: lane-padding the rfft
-    bins (481->512 @48k) made the MDF chain ~9% SLOWER at f32 and ~8%
-    slower again after the bf16 storage change (9.39 vs 8.66 ms/tick at
-    10240 legs) — the extra HBM traffic outweighs alignment gains (the
-    chain is bandwidth-bound and XLA tiles 481 fine). Natural size it is;
-    the padding plumbing in _aec_process stays (F_pad=0)."""
+    """Frequency-axis storage size: the natural S + 1 rfft bins. The
+    padding plumbing in _aec_process stays (F_pad=0)."""
     return S + 1
 
 
@@ -71,66 +65,51 @@ def _padded_bins(S: int) -> int:
 # The MAIN taps are only read (written on rare promotes) and the far-end
 # history is shifted wholesale every tick — both tolerate bf16 storage
 # (compute upcasts to f32), halving their traffic. The SHADOW taps
-# accumulate mu*G every tick and stay f32: bf16 accumulation stalls once
-# updates drop under one ulp. ERLE is unchanged (tests assert >15 dB);
-# see ROUND2_NOTES.md for the measured legs/chip effect.
+# accumulate mu*G every tick and need stochastic rounding in bf16 (below):
+# plain bf16 accumulation stalls once updates drop under one ulp. ERLE is
+# unchanged (tests assert >15 dB).
 STORE_DTYPE = jnp.bfloat16
 
-# Gate the main-tap rewrite on any(promote) (lax.cond) — measured SLOWER
-# on v5e (8.42 vs 7.37 ms/tick @10240: XLA does not alias the identity
-# branch through scan carries; the cond adds overhead). Kept as an A/B
-# knob; default off. PALLAS_MDF=1 also re-measured post-bf16: 11.08.
+# Gate the main-tap rewrite on any(promote) (lax.cond). A/B knob, default
+# off; not measured on the GPU.
 import os as _os
 _COND_PROMOTE = _os.environ.get("AEC_COND_PROMOTE", "0") != "0"
 
-# bf16 SHADOW taps with stochastic rounding (round-5 bandwidth lever):
-# the shadow RMW is the tick's top byte-mover (61.6 KB/leg-tick modeled,
-# 43% of EC traffic — VERDICT r4 weak item 6).  Plain bf16 shadow storage
-# was rejected in r2 because NLMS accumulation STALLS once per-tick
-# updates drop under one bf16 ulp (2^-8 relative).  Stochastic rounding
+# bf16 SHADOW taps with stochastic rounding (bandwidth lever): the shadow
+# read-modify-write is the tick's top byte-mover (61.6 KB/leg-tick
+# modeled, tools/mfu.py).  Plain bf16 shadow storage stalls NLMS
+# accumulation once per-tick updates drop under one bf16 ulp (2^-8
+# relative).  Stochastic rounding
 # removes the stall: add a uniform 16-bit value to the f32 bit pattern's
 # discarded mantissa bits before truncating, so a sub-ulp update is
 # applied with probability proportional to its size — unbiased in
 # expectation (the standard bf16-training recipe; NLMS is itself a noisy
 # gradient method, so the added variance is in-family).  The PRNG is a
-# counter+index integer hash: exact on every backend, so CPU and TPU
-# still produce bit-identical taps (tpu_correctness discipline).
-# Active only on the default (XLA-fused) update path: the opt-in pallas /
-# half-update knob paths assume f32 shadow storage and stay that way.
+# counter+index integer hash: exact on every backend, so CPU and GPU
+# produce bit-identical rounding decisions (device-vs-CPU check,
+# models/device_check.py).
+# Active only on the default update path: the half-update knob path
+# assumes f32 shadow storage and stays that way.
 def _bf16_shadow_on() -> bool:
     """Read at STATE-INIT time (the knob envs are runtime-toggled in
     tests); the created state's Ws dtype then drives the process path,
     so a state outlives any later env flips."""
     return (_os.environ.get("AEC_BF16_SHADOW", "1") != "0"
-            and _os.environ.get("PALLAS_MDF", "0") != "1"
-            and _os.environ.get("AEC_PALLAS_UPDATE", "0") != "1"
             and _os.environ.get("AEC_HALF_UPDATE", "0") == "0")
 
 
 def _circ_hist_on() -> bool:
-    """Circular far-history (A/B knob, default OFF — measured SLOWER):
+    """Circular far-history (A/B knob, default OFF):
     instead of the per-tick history SHIFT (concatenate new block + drop
     oldest = full [B,P,F] rewrite), keep a [B,2P,F] buffer, write each
     tick's block at TWO slots (hq and hq+P, hq decrementing mod P), and
     read the always-lag-ordered window [hq:hq+P] via dynamic_slice.
     Outputs are BIT-IDENTICAL to the shift form (same quantized values,
     same reduce order — tests/test_aec.py::test_circular_history_exact).
-
-    MEASURED on v5e @8192 (r5): ec_only 3.747 vs 2.603 ms/tick (+44%),
-    compiled HLO bytes 138.8 vs 113.9 MB/tick — the traced-offset window
-    slice MATERIALIZES instead of fusing into the variadic reduce, and
-    the slot dus pair bills extra writes, so the shift's bandwidth comes
-    back with interest.  Fifth rejected structural alternative (after
-    Pallas megakernel, cond-gated tap writes, select-reorder, half-update
-    NLMS): XLA's fusion of the plain shift remains the best schedule
-    found.  Kept as a knob for re-evaluation on toolchains whose
-    dynamic-slice fusion is stronger.  Read at state-init time; the Xh
-    shape then drives the process path.  Requires the default XLA-fused
-    branch (the pallas/half-update knob paths shift in their own
-    layouts)."""
+    Not measured on the GPU.  Read at state-init time; the Xh shape then
+    drives the process path.  Requires the default update branch (the
+    half-update knob path shifts in its own layout)."""
     return (_os.environ.get("AEC_CIRC_HIST", "0") == "1"
-            and _os.environ.get("PALLAS_MDF", "0") != "1"
-            and _os.environ.get("AEC_PALLAS_UPDATE", "0") != "1"
             and _os.environ.get("AEC_HALF_UPDATE", "0") == "0")
 
 
@@ -154,16 +133,10 @@ def _sround_bf16(x, salt):
         (bits >> 16).astype(jnp.uint16), jnp.bfloat16)
 
 
-# Selective-partial-update NLMS (A/B knob): update only the partitions
-# whose index parity matches the tick parity — the shadow-tap update
-# (gradient + read-modify-write) runs on HALF the [B,P,F] taps per tick
-# via a strided dynamic_update_slice.  MEASURED SLOWER on v5e (r4
-# interleaved A/B: 6.32 vs 5.90 ms/tick @8192, 9.71 vs 8.68 @12288 —
-# +7-11%): the strided dus breaks the single fused update pass and XLA
-# materializes the copy it was supposed to avoid.  Fourth rejected
-# structural alternative (after Pallas megakernel, cond-gated tap
-# writes, select-reorder) — the fused full-update form remains the best
-# schedule found.  Kept as a knob for re-evaluation on other chips.
+# Selective-partial-update NLMS (A/B knob, default off): update only the
+# partitions whose index parity matches the tick parity — the shadow-tap
+# update (gradient + read-modify-write) runs on HALF the [B,P,F] taps per
+# tick via a strided dynamic_update_slice.  Not measured on the GPU.
 _HALF_UPDATE = _os.environ.get("AEC_HALF_UPDATE", "0") != "0"
 
 
@@ -195,6 +168,9 @@ def _aec_init(ctx):
         "Nf": jnp.ones((B,), jnp.float32),   # shadow-error floor (min stats)
         "leak": jnp.ones((B,), jnp.float32),
         "cpos": jnp.zeros((), jnp.int32),   # round-robin constraint cursor
+        # this tick's two-path transfers per leg: promote | reseed << 1 |
+        # hard_reset << 2 (observability; nothing reads it back)
+        "xfer": jnp.zeros((B,), jnp.int8),
     }
     if circ:
         # this tick's write slot; decrements mod P (newest-first window)
@@ -215,17 +191,15 @@ def _aec_params(ctx):
 
 
 def _aec_process(state, ins, params, ctx):
-    from mediastreamer2_tpu.ops import pallas_kernels as pk
     near, far = ins
     B, S = near.shape
     two_s = 2 * S
     P = state["Wm_r"].shape[1]
-    # the state's shadow dtype (set at init) picks the path: the pallas /
-    # half-update knob branches are f32-only, so bf16-shadow states always
-    # take the default XLA-fused branch regardless of later env flips
+    # the state's shadow dtype (set at init) picks the path: the
+    # half-update knob branch is f32-only, so bf16-shadow states always
+    # take the default branch regardless of later env flips
     bf16_shadow = state["Ws_r"].dtype == jnp.bfloat16
     circ = state["Xh_r"].shape[1] == 2 * P   # circular far-history layout
-    use_pallas = pk.mdf_available(B) and not bf16_shadow and not circ
     half_update = _HALF_UPDATE and not bf16_shadow and not circ
 
     F_nat = S + 1
@@ -255,69 +229,56 @@ def _aec_process(state, ins, params, ctx):
     # --- history shift + dual filter apply ---------------------------------
     Wm_r_f = state["Wm_r"].astype(jnp.float32)
     Wm_i_f = state["Wm_i"].astype(jnp.float32)
-    if use_pallas:
-        # megakernel: taps+history stay VMEM-resident for the whole pass.
-        # Round the incoming block through the storage dtype FIRST so both
-        # code paths see identical (bf16-quantized) history values.
-        Xr_q = Xr.astype(STORE_DTYPE).astype(jnp.float32)
-        Xi_q = Xi.astype(STORE_DTYPE).astype(jnp.float32)
-        Ym_r, Ym_i, Ys_r, Ys_i, Xh_r, Xh_i = pk.mdf_apply(
-            Wm_r_f, Wm_i_f, state["Ws_r"], state["Ws_i"],
-            state["Xh_r"].astype(jnp.float32),
-            state["Xh_i"].astype(jnp.float32), Xr_q, Xi_q)
-        y_m = irfft_tail(Ym_r[:, :F_nat], Ym_i[:, :F_nat], two_s)
-        y_s = irfft_tail(Ys_r[:, :F_nat], Ys_i[:, :F_nat], two_s)
+    if circ:
+        # circular write: the new block lands at slots hq and hq+P
+        # (two one-slot in-place dus; see _circ_hist_on) and the
+        # lag-ordered window is a fusible dynamic_slice — the full
+        # [B,P,F] rewrite of the shift form never happens
+        nr = Xr[:, None, :].astype(state["Xh_r"].dtype)
+        ni = Xi[:, None, :].astype(state["Xh_i"].dtype)
+        Xh_full_r = jax.lax.dynamic_update_slice_in_dim(
+            state["Xh_r"], nr, hq, axis=1)
+        Xh_full_r = jax.lax.dynamic_update_slice_in_dim(
+            Xh_full_r, nr, hq + P, axis=1)
+        Xh_full_i = jax.lax.dynamic_update_slice_in_dim(
+            state["Xh_i"], ni, hq, axis=1)
+        Xh_full_i = jax.lax.dynamic_update_slice_in_dim(
+            Xh_full_i, ni, hq + P, axis=1)
+        Xh_r = jax.lax.dynamic_slice_in_dim(Xh_full_r, hq, P, axis=1)
+        Xh_i = jax.lax.dynamic_slice_in_dim(Xh_full_i, hq, P, axis=1)
     else:
-        if circ:
-            # circular write: the new block lands at slots hq and hq+P
-            # (two one-slot in-place dus; see _circ_hist_on) and the
-            # lag-ordered window is a fusible dynamic_slice — the full
-            # [B,P,F] rewrite of the shift form never happens
-            nr = Xr[:, None, :].astype(state["Xh_r"].dtype)
-            ni = Xi[:, None, :].astype(state["Xh_i"].dtype)
-            Xh_full_r = jax.lax.dynamic_update_slice_in_dim(
-                state["Xh_r"], nr, hq, axis=1)
-            Xh_full_r = jax.lax.dynamic_update_slice_in_dim(
-                Xh_full_r, nr, hq + P, axis=1)
-            Xh_full_i = jax.lax.dynamic_update_slice_in_dim(
-                state["Xh_i"], ni, hq, axis=1)
-            Xh_full_i = jax.lax.dynamic_update_slice_in_dim(
-                Xh_full_i, ni, hq + P, axis=1)
-            Xh_r = jax.lax.dynamic_slice_in_dim(Xh_full_r, hq, P, axis=1)
-            Xh_i = jax.lax.dynamic_slice_in_dim(Xh_full_i, hq, P, axis=1)
-        else:
-            # history shift in the storage dtype (bf16 traffic), upcast
-            # per use
-            Xh_r = jnp.concatenate(
-                [Xr[:, None, :].astype(state["Xh_r"].dtype),
-                 state["Xh_r"][:, :-1]], axis=1)
-            Xh_i = jnp.concatenate(
-                [Xi[:, None, :].astype(state["Xh_i"].dtype),
-                 state["Xh_i"][:, :-1]], axis=1)
+        # history shift in the storage dtype (bf16 traffic), upcast
+        # per use
+        Xh_r = jnp.concatenate(
+            [Xr[:, None, :].astype(state["Xh_r"].dtype),
+             state["Xh_r"][:, :-1]], axis=1)
+        Xh_i = jnp.concatenate(
+            [Xi[:, None, :].astype(state["Xh_i"].dtype),
+             state["Xh_i"][:, :-1]], axis=1)
 
-        # BOTH filter applications as ONE variadic (multi-output) reduce:
-        # XLA emits a single fusion whose loop body loads Wm/Ws/Xh once
-        # per (b,p,f) element and accumulates all four sums — four
-        # separate jnp.sum calls compiled to four reduce fusions that
-        # re-read the [B,P,F] operand pairs each time (~1.5 GB/tick at
-        # 8192 legs; the four fusions topped tools/hlo_traffic.py's
-        # estimated-cycle ranking at a combined ~4.6 ms).  Values are
-        # bit-identical (same products, same add order over P).
-        xr = Xh_r.astype(jnp.float32)
-        xi = Xh_i.astype(jnp.float32)
-        ws_r_f = state["Ws_r"].astype(jnp.float32)
-        ws_i_f = state["Ws_i"].astype(jnp.float32)
-        terms = (Wm_r_f * xr - Wm_i_f * xi,
-                 Wm_r_f * xi + Wm_i_f * xr,
-                 ws_r_f * xr - ws_i_f * xi,
-                 ws_r_f * xi + ws_i_f * xr)
-        Ym_r, Ym_i, Ys_r, Ys_i = jax.lax.reduce(
-            terms, tuple(jnp.zeros((), jnp.float32) for _ in terms),
-            lambda acc, val: tuple(a + v for a, v in zip(acc, val)), (1,))
-        # overlap-save keeps only the block's second half: matmul on
-        # the needed basis columns (half the MACs, identical values)
-        y_m = irfft_tail(Ym_r[:, :F_nat], Ym_i[:, :F_nat], two_s)
-        y_s = irfft_tail(Ys_r[:, :F_nat], Ys_i[:, :F_nat], two_s)
+    # BOTH filter applications as ONE variadic (multi-output) reduce:
+    # XLA emits a single fusion whose loop body loads Wm/Ws/Xh once
+    # per (b,p,f) element and accumulates all four sums — four
+    # separate jnp.sum calls compiled to four reduce fusions that
+    # re-read the [B,P,F] operand pairs each time (~1.5 GB/tick at
+    # 8192 legs; the four fusions topped tools/hlo_traffic.py's
+    # estimated-cycle ranking at a combined ~4.6 ms).  Values are
+    # bit-identical (same products, same add order over P).
+    xr = Xh_r.astype(jnp.float32)
+    xi = Xh_i.astype(jnp.float32)
+    ws_r_f = state["Ws_r"].astype(jnp.float32)
+    ws_i_f = state["Ws_i"].astype(jnp.float32)
+    terms = (Wm_r_f * xr - Wm_i_f * xi,
+             Wm_r_f * xi + Wm_i_f * xr,
+             ws_r_f * xr - ws_i_f * xi,
+             ws_r_f * xi + ws_i_f * xr)
+    Ym_r, Ym_i, Ys_r, Ys_i = jax.lax.reduce(
+        terms, tuple(jnp.zeros((), jnp.float32) for _ in terms),
+        lambda acc, val: tuple(a + v for a, v in zip(acc, val)), (1,))
+    # overlap-save keeps only the block's second half: matmul on
+    # the needed basis columns (half the MACs, identical values)
+    y_m = irfft_tail(Ym_r[:, :F_nat], Ym_i[:, :F_nat], two_s)
+    y_s = irfft_tail(Ys_r[:, :F_nat], Ys_i[:, :F_nat], two_s)
     e_m = near - y_m
     e_s = near - y_s
 
@@ -340,7 +301,7 @@ def _aec_process(state, ins, params, ctx):
     # over minutes (then a promote captures the garbage). Fade them out
     # with a CONTINUOUS ramp (hard thresholds flip per-bin between
     # backends whose Hp differs by ulps, and the flipped gradients
-    # amplify into visible output deltas — tpu_correctness discipline).
+    # amplify into visible output deltas on the device-vs-CPU check).
     thr = 1e-3 * Hp.mean(axis=1, keepdims=True) + 1e-12
     bin_w = jnp.clip(Hp / thr - 1.0, 0.0, 1.0)
     inv_norm = bin_w / (Hp + 1e-5)
@@ -379,7 +340,7 @@ def _aec_process(state, ins, params, ctx):
                    jnp.minimum(state["Nf"] * 1.01, Es), state["Nf"])
     # tight 2.0x margin: promotes stay RARE and decisive — a permanently
     # borderline gate would flip promote ticks between backends with
-    # different rounding (tpu_correctness flagged exactly that at 4.0x)
+    # different rounding (the device-vs-CPU check flagged that at 4.0x)
     at_floor = Es < 2.0 * Nf
     better = (Es < COPY_RATIO * Em) & ((Es < ERLE_GATE * Dn) | at_floor)
     # a transiently-diverged shadow is only reseeded when the MAIN filter
@@ -423,28 +384,11 @@ def _aec_process(state, ins, params, ctx):
     # also lets the promote select below read the FINAL shadow taps, which
     # matters for the fusion schedule.
     promote = promote & ~hard_reset
+    xfer = (promote.astype(jnp.int8) | (reseed.astype(jnp.int8) << 1)
+            | (hard_reset.astype(jnp.int8) << 2))
 
     # --- gradient + NLMS update + transfer copies ---------------------------
-    fused_upd = (not use_pallas and not half_update
-                 and not bf16_shadow and pk.update_tile(B) > 0)
-    if fused_upd:
-        # OPT-IN (AEC_PALLAS_UPDATE=1; measured slower than the default
-        # jnp branch below — see pallas_kernels.update_tile): one VMEM
-        # pass over [B,P,F] for gradient + NLMS step + constraint select
-        # + promote/reseed/hard-reset transfers, Ws/Wm donated in place;
-        # equivalent to the jnp branch within ~1 ulp/tick
-        Ws_r, Ws_i, Wm_r, Wm_i = pk.mdf_update_fused(
-            cpos, state["Ws_r"], state["Ws_i"],
-            state["Wm_r"], state["Wm_i"], Xh_r, Xh_i, Er, Ei,
-            inv_norm, gc_r, gc_i, mu, promote, reseed, hard_reset)
-    elif use_pallas:
-        Ws_r, Ws_i, Wm_r, Wm_i = pk.mdf_update(
-            cpos, state["Ws_r"], state["Ws_i"], Wm_r_f, Wm_i_f,
-            Xh_r, Xh_i, Er, Ei, inv_norm, gc_r, gc_i, mu,
-            promote.astype(jnp.float32), reseed.astype(jnp.float32))
-        Wm_r = Wm_r.astype(STORE_DTYPE)
-        Wm_i = Wm_i.astype(STORE_DTYPE)
-    elif half_update:
+    if half_update:
         # Partial-update NLMS: gradient + tap RMW on the half of the
         # partitions whose parity matches the tick parity.  [B,P,F] is
         # viewed as [B,P//2,2,F] (p = 2*i + j), so the parity slice is a
@@ -482,8 +426,8 @@ def _aec_process(state, ins, params, ctx):
         # legs, 40% of the EC core's HBM traffic — measured via
         # tools/hlo_traffic.py on the optimized HLO: two 126 MB
         # non-aliased dus fusions).  No [B,P,F] gradient tensor is
-        # materialized either way (VERDICT r3's fusion note), and the
-        # values are bit-identical to the dus form.
+        # materialized either way, and the values are bit-identical to the
+        # dus form.
         Gr, Gi = cmul_conj(Xh_r.astype(jnp.float32),
                            Xh_i.astype(jnp.float32),
                            Er[:, None, :], Ei[:, None, :])
@@ -494,7 +438,7 @@ def _aec_process(state, ins, params, ctx):
             pmask, (mu[:, None] * gc_r)[:, None, :], step_w * Gr)
         Ws_i = state["Ws_i"].astype(jnp.float32) + jnp.where(
             pmask, (mu[:, None] * gc_i)[:, None, :], step_w * Gi)
-    if not use_pallas and half_update:
+    if half_update:
         # the A/B knob path skips the fused masked constraint: overwrite
         # the round-robin partition from the pre-update taps, as before
         ws_p_r = jax.lax.dynamic_slice_in_dim(state["Ws_r"], cpos, 1,
@@ -505,45 +449,40 @@ def _aec_process(state, ins, params, ctx):
             Ws_r, (ws_p_r + mu[:, None] * gc_r)[:, None], cpos, axis=1)
         Ws_i = jax.lax.dynamic_update_slice_in_dim(
             Ws_i, (ws_p_i + mu[:, None] * gc_i)[:, None], cpos, axis=1)
-    if not use_pallas and not fused_upd:
-        p3 = promote[:, None, None]
-        r3 = reseed[:, None, None]
-        h3 = hard_reset[:, None, None]
-        # reseed + hard-reset ride the update pass; the promote select then
-        # reads the FINAL Ws (valid — the three decisions are mutually
-        # exclusive per leg, see the mask note above).  Reading the
-        # materialized final value instead of the pre-reseed intermediate
-        # stops XLA REMATERIALIZING the whole NLMS update inside the
-        # promote-select fusion (a second full read of Ws + Xh, ~630 MB/
-        # tick at 8192 legs — tools/hlo_traffic.py ranked that remat
-        # fusion equal-first in the tick).
-        Ws_r = jnp.where(h3, 0.0, jnp.where(r3, Wm_r_f, Ws_r))
-        Ws_i = jnp.where(h3, 0.0, jnp.where(r3, Wm_i_f, Ws_i))
-        if bf16_shadow:
-            # quantize ONCE, after all transfers, so the promote select
-            # below copies exactly the stored shadow value; fresh salt per
-            # tick keeps the rounding unbiased over time
-            salt = state["srk"] * jnp.uint32(2)
-            Ws_r = _sround_bf16(Ws_r, salt)
-            Ws_i = _sround_bf16(Ws_i, salt + jnp.uint32(1))
-        if _COND_PROMOTE:
-            # promotes are rare (hysteretic, steady-state ~never): gate the
-            # [B,P,F] bf16 main-tap rewrite on any(promote) so the common
-            # tick aliases Wm through the scan carry instead of copying it
-            Wm_r, Wm_i = jax.lax.cond(
-                jnp.any(promote),
-                lambda: (jnp.where(p3, Ws_r.astype(STORE_DTYPE),
-                                   state["Wm_r"]),
-                         jnp.where(p3, Ws_i.astype(STORE_DTYPE),
-                                   state["Wm_i"])),
-                lambda: (state["Wm_r"], state["Wm_i"]))
-        else:
-            Wm_r = jnp.where(p3, Ws_r.astype(STORE_DTYPE), state["Wm_r"])
-            Wm_i = jnp.where(p3, Ws_i.astype(STORE_DTYPE), state["Wm_i"])
-    elif not fused_upd:                # pallas megakernel: zero outside
-        h3 = hard_reset[:, None, None]
-        Ws_r = jnp.where(h3, 0.0, Ws_r)
-        Ws_i = jnp.where(h3, 0.0, Ws_i)
+    p3 = promote[:, None, None]
+    r3 = reseed[:, None, None]
+    h3 = hard_reset[:, None, None]
+    # reseed + hard-reset ride the update pass; the promote select then
+    # reads the FINAL Ws (valid — the three decisions are mutually
+    # exclusive per leg, see the mask note above).  Reading the
+    # materialized final value instead of the pre-reseed intermediate
+    # stops XLA REMATERIALIZING the whole NLMS update inside the
+    # promote-select fusion (a second full read of Ws + Xh, ~630 MB/
+    # tick at 8192 legs — tools/hlo_traffic.py ranked that remat
+    # fusion equal-first in the tick).
+    Ws_r = jnp.where(h3, 0.0, jnp.where(r3, Wm_r_f, Ws_r))
+    Ws_i = jnp.where(h3, 0.0, jnp.where(r3, Wm_i_f, Ws_i))
+    if bf16_shadow:
+        # quantize ONCE, after all transfers, so the promote select
+        # below copies exactly the stored shadow value; fresh salt per
+        # tick keeps the rounding unbiased over time
+        salt = state["srk"] * jnp.uint32(2)
+        Ws_r = _sround_bf16(Ws_r, salt)
+        Ws_i = _sround_bf16(Ws_i, salt + jnp.uint32(1))
+    if _COND_PROMOTE:
+        # promotes are rare (hysteretic, steady-state ~never): gate the
+        # [B,P,F] bf16 main-tap rewrite on any(promote) so the common
+        # tick aliases Wm through the scan carry instead of copying it
+        Wm_r, Wm_i = jax.lax.cond(
+            jnp.any(promote),
+            lambda: (jnp.where(p3, Ws_r.astype(STORE_DTYPE),
+                               state["Wm_r"]),
+                     jnp.where(p3, Ws_i.astype(STORE_DTYPE),
+                               state["Wm_i"])),
+            lambda: (state["Wm_r"], state["Wm_i"]))
+    else:
+        Wm_r = jnp.where(p3, Ws_r.astype(STORE_DTYPE), state["Wm_r"])
+        Wm_i = jnp.where(p3, Ws_i.astype(STORE_DTYPE), state["Wm_i"])
     Em = jnp.where(promote, Es, Em)
     Es = jnp.where(reseed, Em, Es)
     Es = jnp.where(hard_reset, Dn, Es)
@@ -556,17 +495,14 @@ def _aec_process(state, ins, params, ctx):
     # cancellation can never be worse than doing nothing (the reference's
     # echo-limiter safety role). The blend is CONTINUOUS (ramps over
     # err/near 2x..4x) so a borderline block doesn't flip hard between
-    # backends with different rounding (keeps the TPU-vs-CPU correctness
-    # harness meaningful).
+    # backends with different rounding (keeps the device-vs-CPU correctness
+    # check meaningful).
     blk_near = (near * near).mean(axis=1)
     blk_err = (e * e).mean(axis=1)
     w_bad = jnp.clip(blk_err / (2.0 * blk_near + 1e-9) - 1.0,
                      0.0, 1.0)[:, None]
     e = (1.0 - w_bad) * e + w_bad * near
     y = (1.0 - w_bad) * y
-    if use_pallas:
-        Xh_r = Xh_r.astype(STORE_DTYPE)
-        Xh_i = Xh_i.astype(STORE_DTYPE)
     # what the state carries forward: the full ring (circ) or the shifted
     # lag-ordered window (all other paths)
     Xh_st_r = Xh_full_r if circ else Xh_r
@@ -587,7 +523,8 @@ def _aec_process(state, ins, params, ctx):
                      "far_prev": far, "Hp": Hp, "Em": Em, "Es": Es,
                      "Dn": Dn, "Nf": Nf, "leak": state["leak"],
                      "promote_cnt": promote_cnt, "reseed_cnt": reseed_cnt,
-                     "diverge_cnt": diverge_cnt, "cpos": (cpos + 1) % P}
+                     "diverge_cnt": diverge_cnt, "cpos": (cpos + 1) % P,
+                     "xfer": xfer}
         if circ:
             new_state["hq"] = (hq + P - 1) % P
         if bf16_shadow:
@@ -617,7 +554,7 @@ def _aec_process(state, ins, params, ctx):
                  "leak": leak,
                  "promote_cnt": promote_cnt, "reseed_cnt": reseed_cnt,
                  "diverge_cnt": diverge_cnt,
-                 "cpos": (cpos + 1) % P}
+                 "cpos": (cpos + 1) % P, "xfer": xfer}
     if circ:
         new_state["hq"] = (hq + P - 1) % P
     if bf16_shadow:

@@ -54,7 +54,7 @@ _verified = None
 def av1_available() -> bool:
     """True only after a real encode->decode roundtrip on THIS libaom/
     dav1d build (offset drift disables the codec instead of corrupting
-    configs — VERDICT r1 item 9)."""
+    configs)."""
     global _verified
     if _verified is not None:
         return _verified

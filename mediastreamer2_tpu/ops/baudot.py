@@ -5,7 +5,7 @@ baudot_detector_filter.cpp): 45.45/50 baud FSK carrying ITA2 5-bit codes
 (mark 1400 Hz / space 1800 Hz, 1 start + 5 data + 1.5 stop bits), used for
 accessibility (TTY/TDD) over the audio path.
 
-TPU-native split:
+Device/host split:
 * generation: fully on device — a per-leg bit schedule (uploaded on
   ``type_text``) drives a batched variable-frequency phase accumulator;
 * detection: the device computes mark/space correlation envelopes per
@@ -182,8 +182,8 @@ def _det_process(state, ins, params, ctx):
     def band(freq):
         c = jnp.cos(2 * jnp.pi * freq * t) * hann
         s = jnp.sin(2 * jnp.pi * freq * t) * hann
-        re = jnp.einsum("bnw,w->bn", wins, c)
-        im = jnp.einsum("bnw,w->bn", wins, s)
+        re = jnp.einsum("bnw,w->bn", wins, c, precision=jax.lax.Precision.HIGHEST)
+        im = jnp.einsum("bnw,w->bn", wins, s, precision=jax.lax.Precision.HIGHEST)
         return re * re + im * im
 
     mark = band(MARK_HZ)

@@ -1,6 +1,6 @@
 """Host<->device boundary filters.
 
-``ext_source`` / ``ext_sink`` are the TPU-native replacement for the
+``ext_source`` / ``ext_sink`` are the batched replacement for the
 reference's soundcard/RTP edge filters' *data motion* role: where the
 reference's MSRtpRecv drains a jitter buffer inside the tick
 (src/otherfilters/msrtp.c:1050-1091) and MSAlsaRead blocks on ALSA, here the

@@ -5,7 +5,7 @@ linear-phase FIR from (frequency, gain, width) triplets; used to apply
 device-specific mic/speaker EQ from the quirks DB
 (audiostream.c:1642-1680).
 
-TPU-native: same frequency-sampling design (host numpy at build), applied
+Batched: same frequency-sampling design (host numpy at build), applied
 per tick as an FFT-domain overlap-save convolution batched over legs —
 O(S log S) per leg per tick and fully fused, instead of per-sample MAC
 loops.  Taps are shared per node (device-class EQ, as in the reference).
@@ -13,6 +13,7 @@ loops.  Taps are shared per node (device-class EQ, as in the reference).
 from __future__ import annotations
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 
 from mediastreamer2_tpu.core.filter import FilterDef, register_filter
@@ -54,8 +55,8 @@ def _eq_process(state, ins, params, ctx):
     """FIR as one matmul: out[n] = sum_t h[t] x_ext[n + T-1 - t].
 
     A [S+T-1] -> [S] convolution matrix is built from the taps each tick
-    (cheap: T*S gather of a carried vector) and applied on the MXU —
-    the TPU-native shape for a per-node FIR (no FFT primitive needed, and
+    (cheap: T*S gather of a carried vector) and applied as one matmul —
+    the batched shape for a per-node FIR (no FFT primitive needed, and
     at tick sizes the matmul fuses with neighbors)."""
     x = ins[0]
     B, S = x.shape
@@ -68,7 +69,7 @@ def _eq_process(state, ins, params, ctx):
     k = (n_idx + T - 1) - l_idx                              # tap index
     valid = (k >= 0) & (k < T)
     M = jnp.where(valid, jnp.take(h, jnp.clip(k, 0, T - 1)), 0.0)
-    out = x_ext @ M
+    out = jnp.matmul(x_ext, M, precision=jax.lax.Precision.HIGHEST)
     return {"hist": x_ext[:, -(T - 1):], "taps": h}, (out,), {}
 
 

@@ -3,7 +3,7 @@
 Reference: MSFilePlayer (src/audiofilters/msfileplayer.c:541-558 — WAV/raw
 reader with loop/seek/EOF events) and MSFileRec (msfilerec.c:320-337).
 
-TPU-native design: instead of per-tick host reads, the *whole decoded
+Batched design: instead of per-tick host reads, the *whole decoded
 signal* is uploaded once into device HBM as part of filter state; each tick
 is a batched gather (player) or a dynamic-slice store (recorder).  This
 keeps the hot loop free of host I/O — the host only touches the file at

@@ -6,7 +6,7 @@ drops samples when a downstream component reports latency buildup
 "soft" strategy picks minimal-difference samples and silent frames first
 (flowcontrol.c:56-127) so the drop is inaudible.
 
-TPU-native: output size must stay static, so dropping N samples is done by
+Batched: output size must stay static, so dropping N samples is done by
 **reading N extra samples from a carried ring and linearly resampling the
 oversized read back to one tick** — uniform micro-time-compression, the
 vectorized equivalent of "drop the least audible samples".  The ring is

@@ -5,7 +5,7 @@ implementation src/utils/g722_encode.c / g722_decode.c (tests are bit-exact
 against vectors generated from that implementation).  RTP quirk preserved:
 payload type 9 runs 16 kHz audio on an 8 kHz RTP clock (RFC 3551 §4.5.2).
 
-TPU design: the per-sample recurrence (predictor adaptation, log scale
+Device design: the per-sample recurrence (predictor adaptation, log scale
 factor) follows the DVI4 pattern (ops/adpcm.py) — a ``lax.scan`` over the
 80 8-kHz code slots of a tick whose body is fully vectorized across legs:
 QMF analysis/synthesis, both bands' quantizers and the block4 pole/zero

@@ -14,7 +14,7 @@ vectors; encoder and decoder share the reconstruction path, so round-trips
 are exact in-framework and cross-interop degrades gracefully (validated by
 round-trip SNR tests at all four rates).
 
-TPU design: same pattern as G.722/DVI4 — lax.scan over the 80 samples of a
+Device design: same pattern as G.722/DVI4 — lax.scan over the 80 samples of a
 tick, body fully vectorized across legs.
 """
 from __future__ import annotations

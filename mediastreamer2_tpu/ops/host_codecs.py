@@ -1,7 +1,7 @@
 """Host-side codecs (Opus, GSM-FR) via ctypes — the "host filter" tier.
 
 Architecture note: the reference treats hardware codecs as opaque filters
-(MediaCodec/VideoToolbox backends under h26x/); equivalently, this TPU
+(MediaCodec/VideoToolbox backends under h26x/); equivalently, this batched
 framework treats *CPU-library* codecs as host filters that live at the RTP
 boundary: payload bytes <-> PCM tick blocks, outside the jitted device
 graph (SURVEY.md §7 step 7).  DSP before/after them stays on device.

@@ -6,7 +6,7 @@ minus its own contribution, :113-130), per-channel gain, max 50 channels
 (:29).  The conference layer splices streams into mixer pins
 (src/voip/audioconference.c:119-178).
 
-TPU-native re-design: conference members are **rows of the batch**, not
+Batched re-design: conference members are **rows of the batch**, not
 pins.  One ``conf_mixer`` node mixes *all conferences of the deployment at
 once*: ``group_id[b]`` says which conference leg *b* belongs to, a
 segment-sum computes every conference's sum in one op, and mix-minus is
@@ -45,7 +45,7 @@ def _conf_process(state, ins, params, ctx):
     k = int(ctx.params.get("uniform_group_size", 0))
     if k > 0 and B % k == 0:
         # uniform contiguous conferences (host bucketing guarantees layout):
-        # reshape-sum instead of scatter — MXU/VPU-friendly, no segment ids
+        # reshape-sum instead of scatter — no segment ids
         sums_g = contrib.reshape(B // k, k, S).sum(axis=1)
         mix = jnp.repeat(sums_g, k, axis=0)
     else:

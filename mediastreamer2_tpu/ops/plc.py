@@ -4,7 +4,7 @@ Reference: MSGenericPLC (src/audiofilters/msgenericplc.c:218-236) with
 waveform continuation in src/utils/genericplc.c (pitch-buffer crossfade) and
 CN fill after sustained loss.
 
-TPU-native: loss is signaled per-leg per-tick by the host jitter buffer as a
+Batched: loss is signaled per-leg per-tick by the host jitter buffer as a
 ``lost`` mask param; concealment replays the tail of a carried history
 buffer with geometric decay and crossfades into synthetic comfort noise
 whose level tracks the last-heard energy.  Everything is masked vector math

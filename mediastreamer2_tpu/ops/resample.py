@@ -1,8 +1,8 @@
-"""Polyphase resampler — re-designed as one MXU matmul per tick.
+"""Polyphase resampler — re-designed as one matmul per tick.
 
 Reference: MSResample wraps the speexdsp polyphase resampler
 (src/audiofilters/msresample.c:114,237-254), which walks samples with a
-fractional phase accumulator — a scalar inner loop.  TPU-native design:
+fractional phase accumulator — a scalar inner loop.  Batched design:
 because every tick converts a *fixed* number of input samples (rate_in/100)
 to a *fixed* number of output samples (rate_out/100) and the phase pattern
 repeats exactly every tick, the whole conversion is a **static linear map**:
@@ -11,7 +11,8 @@ repeats exactly every tick, the whole conversion is a **static linear map**:
 
 where ``R`` is a precomputed windowed-sinc (Kaiser) polyphase matrix and
 ``x_ext`` prepends H history samples carried in state.  One matmul per tick
-puts the entire filter bank on the MXU; quality matches speexdsp's high
+runs the entire filter bank for every leg (f32 at ``Precision.HIGHEST``,
+never TF32); quality matches speexdsp's high
 settings (Kaiser-windowed sinc, ~16-tap-per-phase at unity ratio, stretched
 for downsampling).  Fixed latency = ``support`` input samples.
 """
@@ -21,6 +22,7 @@ import functools
 import math
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 
 from mediastreamer2_tpu.core.filter import FilterDef, register_filter
@@ -80,10 +82,11 @@ def _resample_process(state, ins, params, ctx):
     B = x.shape[0]
     x_ext = jnp.concatenate([state["hist"], x], axis=1)
     if ch == 1:
-        out = x_ext @ R.T
+        out = jnp.matmul(x_ext, R.T, precision=jax.lax.Precision.HIGHEST)
     else:
         xe = x_ext.reshape(B, -1, ch)              # de-interleave
-        out = jnp.einsum("om,bmc->boc", R, xe).reshape(B, -1)
+        out = jnp.einsum("om,bmc->boc", R, xe,
+                         precision=jax.lax.Precision.HIGHEST).reshape(B, -1)
     new_hist = x_ext[:, -H * ch:]
     return {"hist": new_hist}, (out,), {}
 

@@ -1,11 +1,14 @@
-"""Real-pair FFTs as MXU matmuls.
+"""Real-pair FFTs as matmuls.
 
-The TPU toolchain in this deployment does not lower complex dtypes or
-`jnp.fft` (UNIMPLEMENTED) — and for the fixed, modest transform sizes of a
-10 ms tick (N = 160..960) the TPU-native answer is better anyway: a DFT is
-just a matmul with a constant cos/sin basis, which lands on the MXU and
-fuses with the surrounding elementwise work. Everything carries spectra as
-(re, im) float32 pairs; no complex dtype exists anywhere on the device.
+For the fixed, modest transform sizes of a 10 ms tick (N = 160..960) a DFT
+is a matmul with a constant cos/sin basis, which batches over every leg in
+one GEMM and fuses with the surrounding elementwise work. Everything
+carries spectra as (re, im) float32 pairs; no complex dtype exists anywhere
+on the device. Whether cuFFT beats this at tick sizes is not measured yet.
+
+Every f32 product runs at ``Precision.HIGHEST``: the default precision may
+run as TF32 on GPU tensor cores (~3 decimal digits), which the echo
+canceller's ERLE and the device-vs-CPU quality bar do not tolerate.
 
 Conventions match numpy.fft.rfft/irfft (forward: X_k = sum x_n e^{-2pi i nk/N}).
 """
@@ -14,7 +17,10 @@ from __future__ import annotations
 import functools
 
 import numpy as np
+import jax
 import jax.numpy as jnp
+
+HIGHEST = jax.lax.Precision.HIGHEST
 
 
 @functools.lru_cache(maxsize=None)
@@ -43,8 +49,8 @@ def _inv_mats(n: int):
 
 import os
 
-# Optional bf16 basis matrices (RFFT_BF16=1): measured neutral on v5e — the
-# AEC is HBM-bound, not MXU-bound — so f32 (exact) is the default.
+# Optional bf16 basis matrices (RFFT_BF16=1, an A/B knob; not measured on
+# the GPU): f32 at HIGHEST precision is the default.
 _USE_BF16 = os.environ.get("RFFT_BF16", "0") != "0"
 
 
@@ -52,7 +58,7 @@ def _mm(x, m):
     if _USE_BF16:
         return jnp.matmul(x.astype(jnp.bfloat16), jnp.asarray(m, jnp.bfloat16),
                           preferred_element_type=jnp.float32)
-    return x @ jnp.asarray(m)
+    return jnp.matmul(x, jnp.asarray(m), precision=HIGHEST)
 
 
 def rfft(x, n: int):

@@ -5,15 +5,16 @@ envelope, interleaved into the passing stream) and MSToneDetector
 (src/audiofilters/tonedetector.cpp + utils/goertzel_state.cpp — per-sample
 Goertzel recursions).
 
-TPU-native: tone synthesis is a batched phase ramp; detection replaces the
+Batched: tone synthesis is a batched phase ramp; detection replaces the
 sequential Goertzel recursion with an **exact DFT projection per tick**
 (|sum x[n] e^{-j2πfn/fs}|² over the block — same quantity Goertzel
 computes) evaluated as einsum so all legs × all scan frequencies go through
-the MXU at once.  Detection energy is smoothed over ticks to reach the
+one batched matmul.  Detection energy is smoothed over ticks to reach the
 reference's typical 20-40 ms decision windows.
 """
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -117,8 +118,10 @@ def _det_process(state, ins, params, ctx):
     n = jnp.arange(W, dtype=jnp.float32)
     w = 2 * jnp.pi * params["freqs"] / rate                    # [B, F]
     ph = w[:, :, None] * n[None, None, :]                      # [B, F, W]
-    re = jnp.einsum("bfs,bs->bf", jnp.cos(ph), winx)
-    im = jnp.einsum("bfs,bs->bf", jnp.sin(ph), winx)
+    re = jnp.einsum("bfs,bs->bf", jnp.cos(ph), winx,
+                    precision=jax.lax.Precision.HIGHEST)
+    im = jnp.einsum("bfs,bs->bf", jnp.sin(ph), winx,
+                    precision=jax.lax.Precision.HIGHEST)
     # normalized amplitude: |DFT| / (coherent gain * W/2), Hann gain = 0.5
     amp = jnp.sqrt(re * re + im * im) * (4.0 / W)
     power = 0.5 * state["power"] + 0.5 * amp

@@ -4,7 +4,7 @@ Reference: MSVadDtx (src/audiofilters/msvaddtx.c:176-192) — energy VAD
 (bcg729's VAD when available) that emits silence-detected events and CN
 payload parameters so the RTP sender can stop media and send RFC3389 CN.
 
-TPU-native: smoothed block energy vs adaptive noise-floor estimate; the
+Batched: smoothed block energy vs adaptive noise-floor estimate; the
 ``vad_update``/``silence_start``/``noise_level`` outputs surface as event
 tensors the host RTP layer turns into DTX decisions and CN packets.
 """

@@ -5,10 +5,10 @@ libyuv/swscale backends :526-715, NEON rotation in msvideo_neon.c),
 src/videofilters/pixconv.c, sizeconv.c, mire.c (synthetic moving pattern),
 and the GLSL YUV->RGB shaders under utils/opengles_display.c:312-377.
 
-TPU-native: frames are batched tensors — YUV420 packed as
+Batched: frames are batched tensors — YUV420 packed as
 ``[legs, h*3/2, w]`` float32 (Y plane stacked over interleaved half-res U,V
 rows), RGB as ``[legs, h, w, 3]``.  Color conversion is a 3x3 matmul over
-the channel dim (MXU), rescale is ``jax.image.resize`` per plane (XLA
+the channel dim, rescale is ``jax.image.resize`` per plane (XLA
 generates fused gather/linear-combine kernels), rotation is a transpose —
 the things NEON assembly does in the reference fall out of the compiler.
 
@@ -88,13 +88,15 @@ def yuv420_to_rgb(frame, w: int, h: int):
     y, u, v = split_yuv420(frame, w, h)
     up = lambda p: jax.image.resize(p, (p.shape[0], h, w), "linear")
     yuv = jnp.stack([y, up(u) - 0.5, up(v) - 0.5], axis=-1)     # [B,h,w,3]
-    rgb = jnp.einsum("bhwc,rc->bhwr", yuv, jnp.asarray(_YUV2RGB))
+    rgb = jnp.einsum("bhwc,rc->bhwr", yuv, jnp.asarray(_YUV2RGB),
+                     precision=jax.lax.Precision.HIGHEST)
     return jnp.clip(rgb, 0.0, 1.0)
 
 
 def rgb_to_yuv420(rgb):
     B, h, w, _ = rgb.shape
-    yuv = jnp.einsum("bhwc,rc->bhwr", rgb, jnp.asarray(_RGB2YUV))
+    yuv = jnp.einsum("bhwc,rc->bhwr", rgb, jnp.asarray(_RGB2YUV),
+                     precision=jax.lax.Precision.HIGHEST)
     y = yuv[..., 0]
     u = yuv[..., 1] + 0.5
     v = yuv[..., 2] + 0.5

@@ -1,7 +1,7 @@
 """MSVolume equivalent: gain / RMS metering / AGC / noise gate / DC removal.
 
 Reference: src/audiofilters/msvolume.c (state struct :48-84, desc :539-551)
-— per-sample scalar loops with speex-preprocess-assisted AGC.  TPU-native:
+— per-sample scalar loops with speex-preprocess-assisted AGC.  Batched:
 one fused block computation per tick over all legs; gains evolve per *tick*
 with a linear intra-block ramp (click-free, equivalent to the reference's
 gain smoothing `gain += (target-gain)*coef` applied per sample).
@@ -53,13 +53,26 @@ def _vol_params(ctx):
     }
 
 
+def fused_volume(x, gain_start, gain_end, dc, dc_enabled):
+    """The per-sample path of one tick: y = clip((x - dc*dcen) * ramp(g0->g1)).
+
+    x [B,S]; per-leg scalars [B]. Returns (y [B,S], block energy of the
+    DC-removed input [B], block mean of the raw input [B] — feeds the DC
+    tracker). Plain jnp: XLA fuses the elementwise chain and both row
+    reductions into one pass over x."""
+    S = x.shape[1]
+    mean = x.mean(axis=1)
+    x = x - (dc * dc_enabled)[:, None]
+    ramp = jnp.arange(S, dtype=jnp.float32)[None, :] / S
+    g = gain_start[:, None] * (1 - ramp) + gain_end[:, None] * ramp
+    return jnp.clip(x * g, -1.0, 1.0), (x * x).mean(axis=1), mean
+
+
 def _vol_process(state, ins, params, ctx):
-    from mediastreamer2_tpu.ops import pallas_kernels as pk
     x = ins[0]
-    B, S = x.shape
     # gain decisions use the previous tick's smoothed energy, so the whole
-    # sample path (DC removal + gain ramp + clip + metering) is ONE fused
-    # VMEM pass (pallas) — the reference's per-sample msvolume loop shape.
+    # sample path (DC removal + gain ramp + clip + metering) is one fused
+    # pass — the reference's per-sample msvolume loop shape.
     energy_prev = state["energy"]
     rms = jnp.sqrt(energy_prev)
     level_db = 10.0 * jnp.log10(energy_prev + 1e-12)
@@ -84,8 +97,8 @@ def _vol_process(state, ins, params, ctx):
     new_gain = state["gain"] + speed * (target_gain - state["gain"])
 
     dc_en = params["dc_removal"].astype(jnp.float32)
-    fv = pk.fused_volume if pk.pallas_enabled() else pk.fused_volume_reference
-    out, e_block, mean = fv(x, state["gain"], new_gain, state["dc"], dc_en)
+    out, e_block, mean = fused_volume(x, state["gain"], new_gain,
+                                      state["dc"], dc_en)
     dc = 0.9 * state["dc"] + 0.1 * mean
     energy = (1 - EN_EWMA) * energy_prev + EN_EWMA * e_block
 

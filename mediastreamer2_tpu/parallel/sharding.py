@@ -2,7 +2,7 @@
 
 The reference scales by running more ticker threads on more cores (one per
 stream, src/base/msticker.c); its "cluster story" is N independent
-processes.  The TPU-native story (SURVEY.md §2.8/§7): call legs are **pure
+processes.  The batched story (SURVEY.md §2.8/§7): call legs are **pure
 data parallelism** — shard the batch dimension across chips with
 ``jax.sharding`` and let XLA insert collectives only where legs genuinely
 interact (conference segment-sums whose groups span shards ride the ICI).

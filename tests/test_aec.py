@@ -114,7 +114,7 @@ def test_sround_bf16_unbiased_subulp():
 def test_aec_bf16_shadow_quality_parity(factory, monkeypatch):
     """The default bf16+stochastic-rounding shadow must match the f32
     shadow's converged ERLE within 2 dB and stay >15 dB — the quality
-    gate VERDICT r4 item 6 attached to this bandwidth lever."""
+    gate attached to this bandwidth lever."""
     converged = slice(150 * S, 300 * S)
     monkeypatch.setenv("AEC_BF16_SHADOW", "0")
     _, echo32, _, out32, st32 = simulate(factory)

@@ -280,7 +280,7 @@ def test_factory_filter_enable_disable():
 
 
 def test_unsynchronized_inputs_rejected_at_build(factory):
-    """basic_audio tester's 'unsynchronized inputs' case, the TPU-native
+    """basic_audio tester's 'unsynchronized inputs' case, the batched
     way: the reference's bufferizer absorbs a 10%-fast input at run time;
     here graphs are fixed-shape, so mismatched input rates are a
     BUILD-time error directing the caller to a resampler."""

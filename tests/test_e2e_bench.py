@@ -1,6 +1,6 @@
 """E2E conference bench harness: real localhost UDP both ways per tick,
 K-blocked device calls, fidelity oracle — small-N CPU validation of the
-machinery bench.py runs at scale on the TPU."""
+machinery bench.py runs at scale on the GPU."""
 import pytest
 
 from mediastreamer2_tpu.native import rtp_edge_available

@@ -1,6 +1,6 @@
 """Mixed-fleet co-residency: heterogeneous compiled graphs sharing one
 device under concurrent paced loops — small-N CPU validation of the
-machinery bench.py measures at scale on the TPU.
+machinery bench.py measures at scale on the GPU.
 Parity: src/base/msticker.c:448 + src/voip/mediastream.c:227-239 (arbitrary
 concurrent graph mixes are the reference's default condition)."""
 import pytest

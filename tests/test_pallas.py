@@ -1,40 +1,48 @@
-"""Pallas kernel tests (interpret mode on CPU) — fused volume pass matches
-the jnp reference implementation exactly."""
+"""Fused per-tick passes that XLA compiles: the volume stage's sample path
+against a numpy float64 reference, and the uniform-group mixer against the
+general segment-sum form."""
 import numpy as np
+import pytest
 import jax.numpy as jnp
 
-from mediastreamer2_tpu.ops import pallas_kernels as pk
+from mediastreamer2_tpu.ops.volume import fused_volume
 
 
-def test_fused_volume_matches_reference():
-    rng = np.random.default_rng(0)
-    B, S = 16, 160
+def _fused_volume_f64(x, g0, g1, dc, en):
+    x = x.astype(np.float64)
+    S = x.shape[1]
+    mean = x.mean(axis=1)
+    x = x - (dc * en)[:, None]
+    ramp = np.arange(S)[None, :] / S
+    g = g0[:, None] * (1 - ramp) + g1[:, None] * ramp
+    return np.clip(x * g, -1.0, 1.0), (x * x).mean(axis=1), mean
+
+
+@pytest.mark.parametrize("S", [80, 160, 320, 480])
+def test_fused_volume_matches_reference(S):
+    rng = np.random.default_rng(S)
+    B = 16
     x = rng.uniform(-1.2, 1.2, (B, S)).astype(np.float32)
     g0 = rng.uniform(0.1, 2.0, B).astype(np.float32)
     g1 = rng.uniform(0.1, 2.0, B).astype(np.float32)
     dc = rng.uniform(-0.1, 0.1, B).astype(np.float32)
     en = (rng.uniform(0, 1, B) > 0.5).astype(np.float32)
-    y_p, e_p, m_p = pk.fused_volume(jnp.asarray(x), jnp.asarray(g0),
-                                    jnp.asarray(g1), jnp.asarray(dc),
-                                    jnp.asarray(en))
-    y_r, e_r, m_r = pk.fused_volume_reference(jnp.asarray(x), jnp.asarray(g0),
-                                              jnp.asarray(g1), jnp.asarray(dc),
-                                              jnp.asarray(en))
-    np.testing.assert_allclose(np.asarray(y_p), np.asarray(y_r),
-                               rtol=1e-5, atol=1e-6)
-    np.testing.assert_allclose(np.asarray(e_p), np.asarray(e_r),
-                               rtol=1e-5, atol=1e-7)
-    np.testing.assert_allclose(np.asarray(m_p), np.asarray(m_r),
-                               rtol=1e-5, atol=1e-7)
+    y_p, e_p, m_p = fused_volume(jnp.asarray(x), jnp.asarray(g0),
+                                 jnp.asarray(g1), jnp.asarray(dc),
+                                 jnp.asarray(en))
+    y_r, e_r, m_r = _fused_volume_f64(x, g0, g1, dc, en)
+    np.testing.assert_allclose(np.asarray(y_p), y_r, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(np.asarray(e_p), e_r, rtol=1e-5, atol=1e-7)
+    np.testing.assert_allclose(np.asarray(m_p), m_r, rtol=1e-5, atol=1e-7)
 
 
 def test_fused_volume_saturates():
     B, S = 4, 80
     x = np.full((B, S), 0.9, np.float32)
-    y, e, m = pk.fused_volume(jnp.asarray(x), jnp.full(B, 3.0, np.float32),
-                              jnp.full(B, 3.0, np.float32),
-                              jnp.zeros(B, np.float32),
-                              jnp.zeros(B, np.float32))
+    y, e, m = fused_volume(jnp.asarray(x), jnp.full(B, 3.0, np.float32),
+                           jnp.full(B, 3.0, np.float32),
+                           jnp.zeros(B, np.float32),
+                           jnp.zeros(B, np.float32))
     assert float(np.asarray(y).max()) <= 1.0
 
 

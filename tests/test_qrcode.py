@@ -36,7 +36,7 @@ def test_qr_detect_from_luma():
 def test_qr_from_packed_yuv_block():
     import cv2
     from mediastreamer2_tpu.ops.qrcode import QrCodeReader
-    img = _make_qr("hello-tpu")
+    img = _make_qr("hello-ms2")
     big = cv2.resize(img, (200, 200), interpolation=cv2.INTER_NEAREST)
     h, w = 240, 320
     y = np.full((h, w), 255, np.uint8)
@@ -44,4 +44,4 @@ def test_qr_from_packed_yuv_block():
     block = np.concatenate([y.astype(np.float32) / 255.0,
                             np.full((h // 2, w), 0.5, np.float32)], axis=0)
     r = QrCodeReader()
-    assert r.scan_yuv_block(block, w, h) == "hello-tpu"
+    assert r.scan_yuv_block(block, w, h) == "hello-ms2"

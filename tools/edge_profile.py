@@ -1,11 +1,10 @@
 """Host-edge cost profile: where the per-packet nanoseconds go.
 
-The e2e/SRTP capacity rows are host-bound on this 1-core bench host
-(ROUND3_NOTES "host crypto throughput"): every leg costs the shared core
+The e2e/SRTP capacity rows can be host-bound: every leg costs the host
 a pack+protect+send on tx and a recv+verify+decrypt+insert on rx, once
 per 10 ms tick.  This tool measures those two halves in isolation over
 loopback UDP — no device, no pacing — so a crypto/header/syscall
-optimization can be judged in ns/packet before burning a TPU bench run.
+optimization can be judged in ns/packet before a GPU bench run.
 
 Usage:  python tools/edge_profile.py [n_legs] [payload]
 Output: one JSON line {config: ns_per_packet, ...}.

@@ -397,11 +397,9 @@ def cmd_mkvstream(args):
 def main():
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--platform", default="cpu", choices=["cpu", "tpu", "default"],
-                    help="cpu (default): local realtime loop; tpu: device "
-                         "graph on the accelerator (use when host-attached — "
-                         "per-tick dispatch over a remote tunnel breaks the "
-                         "10 ms deadline)")
+    ap.add_argument("--platform", default="cpu", choices=["cpu", "gpu"],
+                    help="cpu (default): local realtime loop; gpu: device "
+                         "graph on the NVIDIA GPU (fails without one)")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     c = sub.add_parser("call")
@@ -495,11 +493,9 @@ def main():
     mk.set_defaults(fn=cmd_mkvstream)
 
     args = ap.parse_args()
-    if args.platform != "default":
-        import jax
-        plat = "cpu" if args.platform == "cpu" else None
-        if plat:
-            jax.config.update("jax_platforms", plat)
+    import jax
+    jax.config.update("jax_platforms",
+                      "cuda" if args.platform == "gpu" else "cpu")
     args.fn(args)
 
 
